@@ -1,14 +1,13 @@
 """k=16 CLUSTERED serving benchmark: exact 1-NN over 1M clustered 16-D
 reference points, W x 10K in-distribution query batches, drained through
-the round-5 high-k adaptation ladder (VERDICT r4 #2).
+the high-k adaptation ladder.
 
-The v9 MXU full scan is the right engine for UNIFORM high-k data — its
-phase 1 runs at ~88% of the charged-flop MXU roofline (NUMBERS.md) — but
-structured data does not need all 1M distance evaluations. This bench
+The v9 expansion full scan is the right engine for UNIFORM high-k data,
+but structured data does not need all 1M distance evaluations. This bench
 measures what the reference built its KD-tree for (core.cu:1059-1163,
 k <= 16 pruning): NNEngine(9) probes the KD beam frontier's certificate
 coverage on live queries, promotes to the pruned beam scan, and the
-drained serving number should beat the uniform MXU drain by the pair-count
+drained serving number should beat the uniform full-scan drain by the pair-count
 reduction (~beam*cap + extras of 1M points scanned per query).
 
 Protocol mirrors benchmarks/bench_k16.py: seeded data, staging untimed
@@ -17,9 +16,9 @@ f64-oracle subsamples, the FULL serving answer inside the timed region
 (base beam drain + 4x retry + exact fallback for uncertified survivors).
 Queries are drawn in-distribution (reference sample + sigma-scale noise) —
 the serving regime where a spatial index is the right tool; the uniform-
-query regime demotes to the MXU scan by design (test_api.py pins both).
+query regime demotes to the full scan by design (test_api.py pins both).
 
-Usage (real chip): python benchmarks/bench_k16_clustered.py
+Usage (on a GPU): python benchmarks/bench_k16_clustered.py
 """
 
 from __future__ import annotations
@@ -72,11 +71,11 @@ def _trials(fn, label: str):
 def main() -> int:
     import jax
 
-    from nns_tpu.api import NNEngine
-    from nns_tpu.data import make_dataset
-    from nns_tpu.kernels.mxu_expansion import MXUExpansion
-    from nns_tpu.kernels.oracle import recall_at_1
-    from nns_tpu.trees.beam import BeamIndex
+    from nns.api import NNEngine
+    from nns.data import make_dataset
+    from nns.kernels.mxu_expansion import MXUExpansion
+    from nns.kernels.oracle import recall_at_1
+    from nns.trees.beam import BeamIndex
 
     log(f"[bench_k16c] backend={jax.default_backend()}")
     _, refs = make_dataset(K, 1, N_REFS, SEED, clustered=True)
@@ -89,7 +88,7 @@ def main() -> int:
     batches = [indist(N_QUERIES) for _ in range(W)]
     allq = np.concatenate(batches, axis=0)
 
-    # -- baseline: the MXU full scan on the SAME clustered data ------------
+    # -- baseline: the v9 full scan on the SAME clustered data ------------
     t0 = time.perf_counter()
     mxu = MXUExpansion(refs)
     st_mxu = mxu.stage_queries(allq)
@@ -102,7 +101,7 @@ def main() -> int:
     # -- the product path: NNEngine(9) probes and promotes -----------------
     # Graded defaults hold at the full size; smoke-test overrides shrink the
     # probe thresholds with the workload so promotion still exercises.
-    from nns_tpu.config import EngineConfig
+    from nns.config import EngineConfig
 
     cfg = EngineConfig(hk_probe_after=min(2048, N_QUERIES),
                        hk_promote_n_min=min(1 << 17, N_REFS))
@@ -121,7 +120,7 @@ def main() -> int:
     assert recall_at_1(idx_first[sub], batches[0][sub], refs) == 1.0
 
     # -- drained serving (staged, full answer in-region) --------------------
-    # Arms: the configuration the ladder actually promoted to (round 5:
+    # Arms: the configuration the ladder actually promoted to (normally
     # the chunk-scan drain — one shared budget-bucket candidate set per
     # locality-sorted chunk — when per-query beam-16 base coverage
     # certifies), plus the per-query beam forms for comparison.

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from nns_tpu.parallel.accounting import (
+from nns.parallel.accounting import (
     ring_argmin_work,
     sharded_argmin_work,
     sharded_cells_work,
@@ -58,8 +58,8 @@ def test_collective_payload_is_o_m_not_o_n():
 def test_sharded_cells_work_matches_live_engine():
     import jax
 
-    from nns_tpu.parallel.mesh import make_mesh
-    from nns_tpu.parallel.sharded_cells import ShardedCellEngine
+    from nns.parallel.mesh import make_mesh
+    from nns.parallel.sharded_cells import ShardedCellEngine
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")

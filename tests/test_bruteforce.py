@@ -1,21 +1,35 @@
-"""Brute-force family tests: v1/v2 XLA versions and v3..v7 Pallas versions,
-each verified at recall@1 = 1.0 against the f64 oracle over the scaled
-reference grid (main.cu:38-51 corners, SURVEY.md §4)."""
+"""Brute-force family tests: v1/v2 XLA versions and the v3..v7 registry
+rungs (one fused scan; v7 in its reference-split mode), each verified at
+recall@1 = 1.0 against the f64 oracle over the scaled reference grid
+(main.cu:38-51 corners, SURVEY.md §4)."""
 
 import numpy as np
 import pytest
 
-import nns_tpu
+import nns
 from conftest import assert_exact
-from nns_tpu.data import make_dataset
-from nns_tpu.kernels.pallas_fused import (
-    nns_fused,
-    nns_fused_point_major,
-    nns_fused_queries_resident,
-    nns_fused_streaming,
-    nns_two_level,
-)
-from nns_tpu.kernels.xla_bruteforce import nns_distance_matrix, nns_expansion_matmul
+from nns.config import EngineConfig
+from nns.data import make_dataset
+from nns.kernels.pallas_fused import nns_fused
+from nns.kernels.xla_bruteforce import nns_distance_matrix, nns_expansion_matmul
+
+
+def _rung(version: int, name: str):
+    """Registry rung ``version`` through the public API, with the tile
+    sizes as keyword arguments like the kernel functions take them."""
+
+    def fn(q, r, tile_m: int = 64, tile_n: int = 128):
+        cfg = EngineConfig(tile_m=tile_m, tile_n=tile_n)
+        return nns.nns(q, r, version=version, config=cfg)
+
+    fn.__name__ = name
+    return fn
+
+
+nns_fused_point_major = _rung(3, "nns_fused_point_major")
+nns_fused_streaming = _rung(5, "nns_fused_streaming")
+nns_fused_queries_resident = _rung(6, "nns_fused_queries_resident")
+nns_two_level = _rung(7, "nns_two_level")
 
 ALL_BRUTE = [
     nns_distance_matrix,
@@ -71,7 +85,7 @@ def test_v2_expansion_exact_at_offset():
     rng = np.random.default_rng(42)
     base = rng.random((2048, 3)).astype(np.float32) * 1e-3 + 1000.0
     q = (rng.random((128, 3)).astype(np.float32) * 1e-3 + 1000.0)
-    idx = nns_tpu.nns(q, base, version=2)
+    idx = nns.nns(q, base, version=2)
     assert_exact(idx, q, base)
 
 
@@ -81,7 +95,7 @@ def test_v2_duplicate_fallback_exact():
     refs = np.ones((64, 4), dtype=np.float32) * 0.5
     refs[40:] = 0.9
     q = np.full((8, 4), 0.49, dtype=np.float32)
-    idx = np.asarray(nns_tpu.nns(q, refs, version=2))
+    idx = np.asarray(nns.nns(q, refs, version=2))
     np.testing.assert_array_equal(idx, np.zeros(8, dtype=np.int32))
 
 
@@ -98,7 +112,7 @@ def test_far_query_padding_in_range():
     d = ((q[:, None, :].astype(np.float64) - refs[None]) ** 2).sum(-1)[0]
     dmin = d.min()
     for v in (1, 2, 3, 4, 5, 6, 7, 8, 9):
-        idx = np.asarray(nns_tpu.nns(q, refs, version=v))
+        idx = np.asarray(nns.nns(q, refs, version=v))
         assert 0 <= idx[0] < 1000, f"v{v} returned out-of-range {idx[0]}"
         assert d[idx[0]] <= dmin * (1 + 4 * np.finfo(np.float32).eps), (
             f"v{v} result outside the f32 resolution band"

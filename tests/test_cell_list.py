@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 
 from conftest import assert_exact
-from nns_tpu.data import make_dataset
-from nns_tpu.kernels.cell_list import CellListEngine, nns_cell_list
+from nns.data import make_dataset
+from nns.kernels.cell_list import CellListEngine, nns_cell_list
 
 
 @pytest.mark.parametrize("m,n", [(64, 8192), (200, 32768), (1, 8192)])
@@ -67,7 +67,7 @@ def test_cell_list_non_3d_routes_to_fused():
 
 
 def test_cell_list_save_load(tmp_path):
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     q, r = make_dataset(3, 32, 8192, seed=7)
     eng = CellListEngine(r)
@@ -81,7 +81,7 @@ def test_cell_list_oversized_halo_clamped_stays_exact():
     # halo > supercell width would make the halo-set enumeration skip
     # middle cells; the engine must clamp it and stay exact (certificate
     # rejects what it cannot prove).
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     q, r = make_dataset(3, 64, 8192, seed=9)
     eng = CellListEngine(r, d_per_dim=12, halo=0.5)
@@ -90,9 +90,9 @@ def test_cell_list_oversized_halo_clamped_stays_exact():
 
 
 def test_cell_list_skewed_batch_guard():
-    # All queries in one supercell: q_max would exceed the VMEM budget;
+    # All queries in one supercell: q_max would exceed q_max_limit();
     # stage() must refuse and query() must fall back exactly.
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     rng = np.random.default_rng(10)
     r = rng.random((32768, 3), dtype=np.float32)
@@ -109,7 +109,7 @@ def test_query_dist_upper_bounds_true_nn():
     # best_d2 from the scan kernel must upper-bound each query's true NN
     # distance whenever its halo set is nonempty (downstream consumers size
     # adaptive structures from it).
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     q, r = make_dataset(3, 128, 16384, seed=14)
     eng = CellListEngine(r)
@@ -124,7 +124,7 @@ def test_query_dist_upper_bounds_true_nn():
 
 
 def test_cell_list_topk_matches_oracle():
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     q, r = make_dataset(3, 64, 16384, seed=16)
     eng = CellListEngine(r)
@@ -139,7 +139,7 @@ def test_cell_list_topk_matches_oracle():
 
 
 def test_cell_list_topk_fallback_when_k_exceeds_halo():
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     q, r = make_dataset(3, 16, 8192, seed=17)
     eng = CellListEngine(r)
@@ -157,8 +157,8 @@ def test_beam_promotion_clustered_coverage():
     """VERDICT r1 #3: uniform queries over clustered refs defeat the fixed
     halo certificate (~18% coverage at 1M); the adaptive-depth octree beam
     index must certify >= 95% of them."""
-    from nns_tpu.trees.beam import octree_beam_index
-    from nns_tpu.trees.octree import Octree
+    from nns.trees.beam import octree_beam_index
+    from nns.trees.octree import Octree
 
     _, r = make_dataset(3, 1, 120_000, seed=5, clustered=True)
     rng = np.random.default_rng(42)
@@ -172,8 +172,8 @@ def test_beam_promotion_clustered_coverage():
 def test_nnengine_promotes_to_beam_on_clustered():
     """NNEngine(v14) must promote CellListEngine -> octree BeamIndex when
     the fixed-halo certificate misses a batch, and stay exact throughout."""
-    from nns_tpu.api import NNEngine
-    from nns_tpu.trees.beam import BeamIndex
+    from nns.api import NNEngine
+    from nns.trees.beam import BeamIndex
 
     _, r = make_dataset(3, 1, 120_000, seed=6, clustered=True)
     rng = np.random.default_rng(7)
@@ -192,8 +192,8 @@ def test_nnengine_promotes_to_beam_on_clustered():
 def test_beam_topk_clustered_matches_oracle():
     # Exact k-NN through the promoted beam index (the clustered-workload
     # k-NN path; certificate-gated with chunked-scan fallback).
-    from nns_tpu.trees.beam import octree_beam_index
-    from nns_tpu.trees.octree import Octree
+    from nns.trees.beam import octree_beam_index
+    from nns.trees.octree import Octree
 
     _, r = make_dataset(3, 1, 50_000, seed=8, clustered=True)
     rng = np.random.default_rng(9)
@@ -214,7 +214,7 @@ def test_beam_topk_clustered_matches_oracle():
 
 def test_query_queue_matches_single_batch():
     # The W-batch queue dispatch must agree exactly with per-batch queries.
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     rng = np.random.default_rng(30)
     r = rng.random((32768, 3), dtype=np.float32)
@@ -240,7 +240,7 @@ def test_ragged_queue_mixed_q_max_matches_single_batch():
     # concentrated cluster forcing a larger q_max) must not inflate the
     # other batches' tensors, and the mixed-shape tuple drain must agree
     # exactly with per-batch queries.
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     rng = np.random.default_rng(31)
     r = rng.random((32768, 3), dtype=np.float32)
@@ -269,7 +269,7 @@ def test_query_queue_serving_path_with_skewed_batch():
     # The public serving drain (query_queue) now stages ragged: a skewed
     # batch in the queue must still produce EXACT answers for every batch
     # and sane coverage, without falling back to per-batch querying.
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     rng = np.random.default_rng(32)
     r = rng.random((32768, 3), dtype=np.float32)
@@ -296,7 +296,7 @@ def test_query_queue_canonical_drain_bounds_traces():
     composition or order. (Reference analog: core.cu:1900-1933's warm-up
     exists so steady-state serving never pays init cost; a minutes-long
     mid-serving recompile violates that contract.)"""
-    from nns_tpu.kernels.cell_list import (
+    from nns.kernels.cell_list import (
         CellListEngine,
         _device_query_queue_seq,
     )
@@ -352,8 +352,8 @@ def test_query_queue_canonical_drain_bounds_traces():
 def test_beam_checkpoint_roundtrip(tmp_path):
     # A clustered-promoted v14 engine must checkpoint as a beam index and
     # load back through NNEngine.load's format sniffing.
-    from nns_tpu.api import NNEngine
-    from nns_tpu.trees.beam import BeamIndex
+    from nns.api import NNEngine
+    from nns.trees.beam import BeamIndex
 
     _, r = make_dataset(3, 1, 120_000, seed=9, clustered=True)
     rng = np.random.default_rng(11)
@@ -378,7 +378,7 @@ def test_ids_above_2_24_transit_exactly():
     import jax
     import jax.numpy as jnp
 
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     rng = np.random.default_rng(77)
     r = rng.random((8192, 3), dtype=np.float32)
@@ -403,10 +403,10 @@ def test_ids_above_2_24_transit_exactly():
 
 
 def test_odd_d_engine_group_batch_divisor():
-    # D odd means G = D^3 is odd: the fixed gb=8 of earlier rounds silently
-    # collapsed the kernel to one supercell per grid step. The divisor scan
-    # must pick a real common divisor and stay exact.
-    from nns_tpu.kernels import cell_list as cl
+    # D odd means G = D^3 is odd (no power-of-two factor at all): the scan
+    # must cover every supercell, one winner per (supercell, slot), and stay
+    # exact on both the per-batch and the queue-drain paths.
+    from nns.kernels import cell_list as cl
 
     rng = np.random.default_rng(31)
     r = rng.random((20000, 3), dtype=np.float32)
@@ -415,7 +415,8 @@ def test_odd_d_engine_group_batch_divisor():
     q = rng.random((400, 3), dtype=np.float32)
     idx, ok = eng.query_with_flags(q)
     assert_exact(idx[ok], q[ok], r)
-    # the auto choice must not be the degenerate 1 for a composite odd G
-    g = 729
-    gb = max(d for d in range(1, min(cl._GB, g) + 1) if g % d == 0)
-    assert gb == 9
+    denses, _, _ = eng.stage_queue_ragged([q])
+    (rows,) = eng.query_queue_staged(tuple(denses))
+    assert rows.shape == (729, denses[0].shape[1])
+    (idx_q,) = eng.query_queue([q])
+    assert_exact(idx_q, q, r)

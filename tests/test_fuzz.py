@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from conftest import assert_exact
-import nns_tpu
+import nns
 
 
 def _random_case(rng):
@@ -43,22 +43,21 @@ def test_fuzz_versions_exact(case_seed):
     if r.shape[1] == 3:
         versions += [12, 13]
     for v in versions:
-        idx = nns_tpu.nns(q, r, version=v)
+        idx = nns.nns(q, r, version=v)
         assert_exact(idx, q, r)
 
 
 def test_fuzz_v6_budget_fallback():
-    """Shapes chosen to overflow v6's VMEM query budget, forcing the
-    core.cu:546-550 fallback contract through the random generator."""
+    """The reference's v6 falls back when the queries overflow its 64 KB of
+    constant memory (core.cu:546-550). Here v6 is the fused scan, whose
+    query tiles stay in registers whatever m is: a query set far past that
+    budget (5000 x 8 f32 = 160 KB) must still be exact."""
     rng = np.random.default_rng(31337)
     k = 8
-    m = 5000  # > 4 MiB/ (8*4) bytes? no — exceed via tiny budget config
+    m = 5000
     q = rng.random((m, k)).astype(np.float32)
     r = rng.random((700, k)).astype(np.float32)
-    from nns_tpu.config import EngineConfig
-
-    cfg = EngineConfig(vmem_query_budget_bytes=1024)
-    idx = nns_tpu.nns(q, r, version=6, config=cfg)
+    idx = nns.nns(q, r, version=6)
     assert_exact(idx, q, r)
 
 
@@ -70,7 +69,7 @@ def test_fuzz_sharded_duplicate_tiebreak():
     base = rng.random((16, k)).astype(np.float32)
     refs = base[rng.integers(0, 16, 1024)]  # every point duplicated ~64x
     queries = base[rng.integers(0, 16, 64)]  # queries ON duplicate sites
-    idx = nns_tpu.nns(queries, refs, version=8)
+    idx = nns.nns(queries, refs, version=8)
     # Oracle lowest-index ties in f64.
     d = np.sum(
         (queries[:, None, :].astype(np.float64) - refs[None].astype(np.float64)) ** 2,
@@ -85,7 +84,7 @@ def test_fuzz_topk_exact(case_seed):
     rng = np.random.default_rng(2000 + case_seed)
     q, r = _random_case(rng)
     kk = int(rng.integers(1, 12))
-    d2, idx = nns_tpu.nns_topk(q, r, kk, chunk_n=1024)
+    d2, idx = nns.nns_topk(q, r, kk, chunk_n=1024)
     kc = min(kk, r.shape[0])
     d_oracle = np.sort(
         np.sum((q[:, None, :].astype(np.float64) - r[None].astype(np.float64)) ** 2, axis=-1),
@@ -101,9 +100,9 @@ def test_fuzz_ring_random_shapes(case_seed):
     sharded path exactly (both lowest-index) and the f64 oracle."""
     import jax
 
-    from nns_tpu.parallel.mesh import make_mesh
-    from nns_tpu.parallel.ring import ring_argmin
-    from nns_tpu.parallel.sharded import sharded_argmin
+    from nns.parallel.mesh import make_mesh
+    from nns.parallel.ring import ring_argmin
+    from nns.parallel.sharded import sharded_argmin
 
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
@@ -145,7 +144,7 @@ def test_fuzz_affine_range_versions_exact(case_seed):
     if rt.shape[1] == 3:
         versions += [12, 13]
     for v in versions:
-        idx = nns_tpu.nns(qt, rt, version=v)
+        idx = nns.nns(qt, rt, version=v)
         assert_exact(idx, qt, rt)
 
 
@@ -154,7 +153,7 @@ def test_fuzz_affine_range_topk(case_seed):
     rng = np.random.default_rng(5000 + case_seed)
     qt, rt = _affine_case(rng)
     kk = int(rng.integers(1, 9))
-    d2, idx = nns_tpu.nns_topk(qt, rt, kk, chunk_n=1024)
+    d2, idx = nns.nns_topk(qt, rt, kk, chunk_n=1024)
     kc = min(kk, rt.shape[0])
     d_oracle = np.sort(
         np.sum((qt[:, None, :].astype(np.float64) - rt[None].astype(np.float64)) ** 2, axis=-1),
@@ -168,8 +167,8 @@ def test_fuzz_affine_range_topk(case_seed):
 def test_fuzz_affine_range_ring(case_seed):
     import jax
 
-    from nns_tpu.parallel.mesh import make_mesh
-    from nns_tpu.parallel.ring import ring_argmin
+    from nns.parallel.mesh import make_mesh
+    from nns.parallel.ring import ring_argmin
 
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
@@ -197,7 +196,7 @@ def test_fuzz_f32_degenerate_top_all_versions():
         (rng.random((16, 3)) * 1e-4).astype(np.float32),
     ])
     for v in range(15):
-        assert_exact(nns_tpu.nns(q, r, version=v), q, r)
+        assert_exact(nns.nns(q, r, version=v), q, r)
 
 
 def test_fuzz_cells_sentinel_corner_data():
@@ -210,7 +209,7 @@ def test_fuzz_cells_sentinel_corner_data():
     r = (1e6 + rng.random((n, 3)) * 2.0 - 1.0).astype(np.float32)
     q = (1e6 + rng.random((256, 3)) * 2.0 - 1.0).astype(np.float32)
     for v in (14, 4, 12, 13):
-        assert_exact(nns_tpu.nns(q, r, version=v), q, r)
+        assert_exact(nns.nns(q, r, version=v), q, r)
 
 
 def test_nns_rejects_non_finite():
@@ -219,14 +218,14 @@ def test_nns_rejects_non_finite():
     q_nan = np.array([[0.1, np.nan, 0.2]], dtype=np.float32)
     q_inf = np.array([[np.inf, 0.0, 0.2]], dtype=np.float32)
     with pytest.raises(ValueError, match="non-finite"):
-        nns_tpu.nns(q_nan, r)
+        nns.nns(q_nan, r)
     with pytest.raises(ValueError, match="non-finite"):
-        nns_tpu.nns(q_inf, r)
+        nns.nns(q_inf, r)
     r_bad = r.copy()
     r_bad[7, 1] = np.nan
     with pytest.raises(ValueError, match="non-finite"):
-        nns_tpu.nns(q_nan[:, :3] * 0, r_bad)
-    from nns_tpu import NNEngine
+        nns.nns(q_nan[:, :3] * 0, r_bad)
+    from nns import NNEngine
 
     with pytest.raises(ValueError, match="non-finite"):
         NNEngine(4).build(r_bad)

@@ -3,9 +3,9 @@ version, build/query split, recall enforcement, CLI."""
 
 import numpy as np
 
-from nns_tpu.config import BenchConfig
-from nns_tpu.data import make_dataset
-from nns_tpu.harness import main, run, run_one
+from nns.config import BenchConfig
+from nns.data import make_dataset
+from nns.harness import main, run, run_one
 
 
 def test_run_one_records_fields():
@@ -48,8 +48,8 @@ def test_cli_small(capsys):
 
 
 def test_harness_clustered_distribution():
-    from nns_tpu.config import BenchConfig
-    from nns_tpu.harness import run
+    from nns.config import BenchConfig
+    from nns.harness import run
 
     cfg = BenchConfig(
         versions=(12, 14), grid=((3, 64, 4096),), clustered=True,

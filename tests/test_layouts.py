@@ -4,7 +4,7 @@ distance-neutral)."""
 
 import numpy as np
 
-from nns_tpu.kernels import layouts
+from nns.kernels import layouts
 
 
 def test_round_up():

@@ -1,9 +1,9 @@
-"""Unit tests for the v9 two-phase MXU expansion engine
+"""Unit tests for the v9 two-phase tensor-core expansion engine
 (kernels/mxu_expansion.py): phase-1 min-only tile scan + phase-2
 winning-tile f32 rescan + band certificate + exact-refine fallback.
 
 Reference analog: v9 (core.cu:856-1058) is the reference's best brute
-force; it has no tests there (SURVEY.md §4). These pin the TPU rebuild's
+force; it has no tests there (SURVEY.md §4). These pin the rebuild's
 exactness contract.
 """
 
@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from nns_tpu.kernels.mxu_expansion import MXUExpansion, nns_mxu_expansion
-from nns_tpu.kernels.oracle import recall_at_1
+from nns.kernels.mxu_expansion import MXUExpansion, nns_mxu_expansion
+from nns.kernels.oracle import recall_at_1
 
 
 def _oracle(queries, refs):
@@ -149,7 +149,9 @@ def test_tile_n_not_multiple_of_ts_falls_back_to_per_tile_ids():
     refs = rng.random((2000, 16), dtype=np.float32)
     queries = rng.random((40, 16), dtype=np.float32)
     eng = MXUExpansion(refs, tile_m=16, tile_n=640)  # 640 % 256 != 0
-    assert eng.ts == 640  # per-tile ids, wider phase-2 gather
+    # The subtile a winning id addresses is the largest power of two that
+    # divides tile_n (up to 256): five 128-wide subtiles per tile.
+    assert eng.ts == 128
     assert recall_at_1(eng.query(queries), queries, refs) == 1.0
 
 
@@ -308,16 +310,15 @@ def test_drain_bucket_overflow_stays_exact():
 
 
 def test_split_bf16x3_residuals_survive_jit():
-    """The triple-bf16 split must NOT collapse under jit: on the real TPU
-    backend XLA folds ``x - f32(bf16(x))`` to 0 unless the casts are
-    pinned (measured on-chip 2026-08-20 — the fold silently turned the
-    in-jit query-side splits into a plain bf16 truncation, voiding the
-    phase-1 error band the v9 certificate relies on). Pins the
+    """The triple-bf16 split must NOT collapse under jit: XLA may fold
+    ``x - f32(bf16(x))`` to 0 unless the casts are pinned, which silently
+    turns the in-jit query-side splits into a plain bf16 truncation and
+    voids the phase-1 error band the v9 certificate relies on. Pins the
     optimization_barrier fix in _split_bf16x3."""
     import jax
     import jax.numpy as jnp
 
-    from nns_tpu.kernels.mxu_expansion import _split_bf16x3
+    from nns.kernels.mxu_expansion import _split_bf16x3
 
     x = jnp.asarray(
         np.random.default_rng(0).random((8, 16), dtype=np.float32) + 0.1

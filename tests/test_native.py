@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 
 from conftest import assert_exact
-from nns_tpu.data import make_dataset
-from nns_tpu.native import (
+from nns.data import make_dataset
+from nns.native import (
     ensure_built,
     native_available,
     native_kd_build,
@@ -21,7 +21,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_native_scan_matches_numpy():
-    from nns_tpu.kernels.oracle import _linear_scan_numpy
+    from nns.kernels.oracle import _linear_scan_numpy
 
     q, r = make_dataset(3, 100, 4096, seed=1)
     np.testing.assert_array_equal(native_linear_scan(q, r), _linear_scan_numpy(q, r))
@@ -33,7 +33,7 @@ def test_native_scan_exact_16d():
 
 
 def test_native_kd_build_queries_exact():
-    from nns_tpu.trees.kdtree import KDTree, _heap_size
+    from nns.trees.kdtree import KDTree, _heap_size
 
     q, r = make_dataset(3, 128, 4096, seed=3)
     native = native_kd_build(r)
@@ -52,7 +52,7 @@ def test_native_kd_build_queries_exact():
 
 
 def test_native_octree_build_queries_exact():
-    from nns_tpu.trees.octree import Octree
+    from nns.trees.octree import Octree
 
     q, r = make_dataset(3, 128, 4096, seed=4)
     tree = Octree.build(r)  # routes through native when available
@@ -64,7 +64,7 @@ def test_native_octree_build_queries_exact():
 
 
 def test_native_vs_numpy_octree_same_leaf_partition():
-    from nns_tpu.trees.octree import Octree
+    from nns.trees.octree import Octree
 
     _, r = make_dataset(3, 1, 2048, seed=5)
     nat = Octree.build(r)
@@ -81,8 +81,8 @@ def test_native_vs_numpy_octree_same_leaf_partition():
 def test_native_cells_build_same_halo_sets():
     # Native and numpy builds may order slots within a group differently;
     # the SETS per group must match exactly.
-    from nns_tpu.data import make_dataset
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.data import make_dataset
+    from nns.kernels.cell_list import CellListEngine
 
     _, r = make_dataset(3, 1, 20000, seed=7)
     eng = CellListEngine(r, device_place=False)  # native path (lib built)
@@ -98,8 +98,8 @@ def test_native_cells_build_same_halo_sets():
 
 def test_native_cells_build_query_exact():
     from conftest import assert_exact
-    from nns_tpu.data import make_dataset
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.data import make_dataset
+    from nns.kernels.cell_list import CellListEngine
 
     q, r = make_dataset(3, 64, 16384, seed=8)
     eng = CellListEngine(r)

@@ -4,8 +4,8 @@ ground truth — which the reference itself never verified, SURVEY.md §4)."""
 import numpy as np
 import pytest
 
-from nns_tpu.data import make_dataset
-from nns_tpu.kernels.oracle import (
+from nns.data import make_dataset
+from nns.kernels.oracle import (
     _linear_scan_numpy,
     linear_scan,
     nn_oracle_f64,

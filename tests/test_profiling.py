@@ -1,59 +1,50 @@
-"""Device-op profiler: xplane parsing + trace integration."""
+"""Device-op profiler: trace reduction + trace integration."""
 
 import numpy as np
+from jax.profiler import ProfileData
 
-from nns_tpu.utils.profiling import DeviceOpReport, parse_xplane, profile_device_ops
+from nns.utils.profiling import DeviceOpReport, parse_xplane, profile_device_ops
 
-
-def _tag(fnum: int, wt: int) -> bytes:
-    return _vint((fnum << 3) | wt)
-
-
-def _vint(v: int) -> bytes:
-    out = b""
-    while True:
-        b = v & 0x7F
-        v >>= 7
-        if v:
-            out += bytes([b | 0x80])
-        else:
-            return out + bytes([b])
-
-
-def _msg(fnum: int, payload: bytes) -> bytes:
-    return _tag(fnum, 2) + _vint(len(payload)) + payload
+# An XSpace as jax.profiler writes it on a GPU: one /device:GPU:0 plane with
+# one line per CUDA stream, plus a host plane the reduction must ignore.
+_GPU_TRACE = """
+planes {
+  name: "/device:GPU:0"
+  lines {
+    name: "Stream #7(Compute)"
+    events { metadata_id: 1 offset_ps: 0 duration_ps: 2000000000 }
+    events { metadata_id: 2 offset_ps: 3000000000 duration_ps: 1000000000 }
+    events { metadata_id: 3 offset_ps: 5000000000 duration_ps: 500000000 }
+  }
+  lines {
+    name: "Stream #9(MemcpyH2D)"
+    events { metadata_id: 4 offset_ps: 0 duration_ps: 250000000 }
+  }
+  event_metadata { key: 1 value { id: 1 name: "fusion.1" } }
+  event_metadata { key: 2 value { id: 2 name: "fusion.7" } }
+  event_metadata { key: 3 value { id: 3 name: "cell_scan" } }
+  event_metadata { key: 4 value { id: 4 name: "MemcpyH2D" } }
+}
+planes {
+  name: "/host:CPU"
+  lines { name: "python" events { metadata_id: 1 duration_ps: 7000000000 } }
+  event_metadata { key: 1 value { id: 1 name: "fusion.1" } }
+}
+"""
 
 
 def test_parse_xplane_synthetic(tmp_path):
-    # Hand-encode an XSpace: one /device: plane, one "XLA Ops" line with two
-    # events of the same op kind (different .N suffixes) and one other op.
-    def event_meta(mid, name):
-        inner = _tag(1, 0) + _vint(mid) + _msg(2, name.encode())
-        return _msg(4, _tag(1, 0) + _vint(mid) + _msg(2, inner))
-
-    def xevent(mid, dur_ps):
-        # XLine.events is field 4; XEvent{metadata_id=1, duration_ps=3}
-        return _msg(4, _tag(1, 0) + _vint(mid) + _tag(3, 0) + _vint(dur_ps))
-
-    line = _msg(2, b"XLA Ops") + xevent(1, 2_000_000_000) + \
-        xevent(2, 1_000_000_000) + xevent(3, 500_000_000)
-    plane = (
-        _msg(2, b"/device:TPU:0")
-        + event_meta(1, "%fusion.1 = f32[8]{0} fusion(...)")
-        + event_meta(2, "%fusion.7 = f32[8]{0} fusion(...)")
-        + event_meta(3, "%copy.2 = f32[8]{0} copy(...)")
-        + _msg(3, line)
-    )
-    space = _msg(1, plane)
     p = tmp_path / "vm.xplane.pb"
-    p.write_bytes(space)
+    p.write_bytes(ProfileData.text_proto_to_serialized_xspace(_GPU_TRACE))
 
     rep = parse_xplane(str(p))
-    assert rep.devices == ["/device:TPU:0"]
-    assert rep.ops["fusion"] == (2, 3.0)
-    assert rep.ops["copy"] == (1, 0.5)
-    assert abs(rep.total_ms - 3.5) < 1e-9
-    assert "fusion" in str(rep)
+    assert rep.devices == ["/device:GPU:0"]
+    assert rep.ops["fusion"] == (2, 3.0)  # .N numbering folds into one kind
+    assert rep.ops["cell_scan"] == (1, 0.5)
+    assert rep.ops["MemcpyH2D"] == (1, 0.25)
+    assert abs(rep.total_ms - 3.75) < 1e-9  # the host plane is not counted
+    assert rep.top(1) == [("fusion", 2, 3.0)]
+    assert "cell_scan" in str(rep)
 
 
 def test_profile_device_ops_runs():
@@ -71,6 +62,6 @@ def test_profile_device_ops_runs():
     rep = profile_device_ops(run)
     assert isinstance(rep, DeviceOpReport)
     assert isinstance(rep.total_ms, float)
-    # The CPU backend emits no "/device:" plane (the per-op "XLA Ops" line
-    # is a TPU feature); an empty-but-well-formed report is the contract.
+    # The CPU backend has no /device: plane; an empty-but-well-formed
+    # report is the contract there.
     assert isinstance(rep.ops, dict)

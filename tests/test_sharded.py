@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 
 from conftest import assert_exact
-from nns_tpu.data import make_dataset
-from nns_tpu.parallel.mesh import best_mesh, make_mesh
-from nns_tpu.parallel.sharded import nns_sharded, sharded_argmin
+from nns.data import make_dataset
+from nns.parallel.mesh import best_mesh, make_mesh
+from nns.parallel.sharded import nns_sharded, sharded_argmin
 
 
 def test_mesh_has_8_devices():
@@ -32,7 +32,7 @@ def test_sharded_exact_across_mesh_sizes(n_dev):
 
 
 def test_sharded_matches_single_chip():
-    from nns_tpu.kernels.pallas_fused import nns_fused
+    from nns.kernels.pallas_fused import nns_fused
 
     q, r = make_dataset(k=16, m=32, n=2048, seed=5)
     single = np.asarray(nns_fused(q, r))
@@ -70,9 +70,9 @@ def test_best_mesh_degenerate_tiny_n():
 
 def test_ring_matches_oracle_and_allgather():
     import jax
-    from nns_tpu.parallel.mesh import make_mesh
-    from nns_tpu.parallel.ring import ring_argmin
-    from nns_tpu.parallel.sharded import sharded_argmin
+    from nns.parallel.mesh import make_mesh
+    from nns.parallel.ring import ring_argmin
+    from nns.parallel.sharded import sharded_argmin
 
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
@@ -87,8 +87,8 @@ def test_ring_matches_oracle_and_allgather():
 
 def test_ring_duplicate_tiebreak_lowest_global_index():
     import jax
-    from nns_tpu.parallel.mesh import make_mesh
-    from nns_tpu.parallel.ring import ring_argmin
+    from nns.parallel.mesh import make_mesh
+    from nns.parallel.ring import ring_argmin
 
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
@@ -108,7 +108,7 @@ def test_ring_duplicate_tiebreak_lowest_global_index():
 
 
 def test_ring_uneven_pad_and_single_device_fallback():
-    from nns_tpu.parallel.ring import nns_ring
+    from nns.parallel.ring import nns_ring
 
     q, r = make_dataset(3, 33, 777, seed=43)  # padding on both axes
     assert_exact(np.asarray(nns_ring(q, r)), q, r)
@@ -122,8 +122,8 @@ def test_ring_16m_refs_virtual_mesh():
     # kernel fast; recall vs the f64 oracle on all queries.
     import jax
 
-    from nns_tpu.parallel.mesh import make_mesh
-    from nns_tpu.parallel.ring import ring_argmin
+    from nns.parallel.mesh import make_mesh
+    from nns.parallel.ring import ring_argmin
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device virtual mesh")

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 
 from conftest import assert_exact
-from nns_tpu.data import make_dataset
-from nns_tpu.parallel.mesh import make_mesh
-from nns_tpu.parallel.sharded_cells import ShardedCellEngine, nns_sharded_cells
+from nns.data import make_dataset
+from nns.parallel.mesh import make_mesh
+from nns.parallel.sharded_cells import ShardedCellEngine, nns_sharded_cells
 
 
 @pytest.mark.parametrize("n_dev", [2, 4, 8])
@@ -24,7 +24,7 @@ def test_sharded_cells_exact(n_dev):
 
 
 def test_sharded_cells_matches_single_chip():
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     q, r = make_dataset(3, 64, 8192, seed=2)
     single = CellListEngine(r).query(q)
@@ -63,8 +63,8 @@ def test_sharded_queue_drain_matches_per_batch():
     # agree with per-batch sharded queries and stay exact.
     import jax
 
-    from nns_tpu.parallel.mesh import make_mesh
-    from nns_tpu.parallel.sharded_cells import ShardedCellEngine
+    from nns.parallel.mesh import make_mesh
+    from nns.parallel.sharded_cells import ShardedCellEngine
 
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
@@ -122,7 +122,7 @@ def test_sharded_submit_collect_pipeline():
 def test_sharded_save_load_roundtrip(tmp_path):
     # The sharded checkpoint is placement-free: it restores onto a
     # DIFFERENT mesh size and as a single-chip engine, bit-identically.
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     rng = np.random.default_rng(61)
     r = rng.random((16384, 3), dtype=np.float32)
@@ -161,7 +161,7 @@ def test_sharded_query_topk_inherited_exact():
 
 
 def test_sharded_collect_dist_matches_single_chip():
-    from nns_tpu.kernels.cell_list import CellListEngine
+    from nns.kernels.cell_list import CellListEngine
 
     q, r = make_dataset(3, 128, 16384, seed=11)
     s_idx, s_ok, s_d2 = CellListEngine(r).query_with_flags_dist(q)
@@ -201,8 +201,8 @@ def test_sharded_queue_drain_bounds_traces():
     ladder-crossing queue permuted two ways must mint ZERO new mesh
     programs on later passes (an LRU eviction here re-traces a
     minutes-long sharded program mid-serving)."""
-    from nns_tpu.kernels.cell_list import CellListEngine
-    from nns_tpu.parallel.sharded_cells import _build_scan_queue
+    from nns.kernels.cell_list import CellListEngine
+    from nns.parallel.sharded_cells import _build_scan_queue
 
     ladder = len(CellListEngine._CHUNK_LADDER)
     assert _build_scan_queue.cache_parameters()["maxsize"] >= 9 * ladder * 2

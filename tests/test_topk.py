@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from nns_tpu.data import make_dataset
-from nns_tpu.kernels.topk import nns_topk
+from nns.data import make_dataset
+from nns.kernels.topk import nns_topk
 
 
 def _oracle_topk(q, r, kk):
@@ -45,7 +45,7 @@ def test_topk_k_exceeds_n():
 
 
 def test_topk_first_column_is_1nn():
-    from nns_tpu.kernels.oracle import recall_at_1
+    from nns.kernels.oracle import recall_at_1
 
     q, r = make_dataset(3, 64, 8192, seed=2)
     _, idx = nns_topk(q, r, 8)
